@@ -27,6 +27,18 @@ What it does, each phase failing the run (non-zero exit) on any failure:
    at >= 99 % of pixels of the staged frame; then drives the staged
    configuration (``entry.STAGED_CONFIG``: 5 K1 launches per frame) and
    checks its 160x120 frame kernel vs plain version;
+4b. converged rendering and the trace-record replays at full width: a
+   128-spp converged frame through ``Scene.render_converged`` (16 passes:
+   exactly 16 K2 launches and no K1 launch, the pass loop run under
+   ``torch.cuda.set_sync_debug_mode("error")`` with the camera as device
+   tensors, the frame equal bit for bit to ``PathTracer.render_converged``'s
+   host loop; ms per frame and per pass); then frames with
+   ``pallas_inkernel_radiance=False`` (1 K2 launch in trace-record mode and
+   no K1 launch per frame) and with ``pallas_inkernel_nee=False`` (1 K2 and
+   1 K1 launch per frame: the shadow rays of every bounce), with ms/frame and
+   peak memory; at 160x120 each is byte-identical between the kernels and
+   their plain versions and within +-1 u8 at >= 99 % of pixels of the
+   in-kernel-radiance frame;
 5. times each kernel at the shapes the main path gave it, beside its plain
    version and its bound (for K1 per staged launch: rays, steps per ray, ms
    and the launch's grid); prints K2's persistent grid (the runtime's
@@ -61,6 +73,7 @@ import torch
 from vrv_tpu_torch import entry
 from vrv_tpu_torch.config import RenderConfig
 from vrv_tpu_torch.device import event_ms
+from vrv_tpu_torch.models.pathtracer import CameraPose, PathTracer
 from vrv_tpu_torch.ops import dda_proc
 from vrv_tpu_torch.ops.camera_rays import raygen
 from vrv_tpu_torch.ops.pallas import build
@@ -377,7 +390,7 @@ def check_probe(dev) -> dict:
     return res
 
 
-def profile_frame(scene, cam, cfg) -> None:
+def profile_frame(scene, cam, cfg, label=None) -> None:
     """Device time of one steady frame by stage (the renderer's named
     ranges) and by kernel, from torch.profiler's device-side events."""
     from collections import defaultdict
@@ -404,7 +417,8 @@ def profile_frame(scene, cam, cfg) -> None:
     busy = sum(kernels.values())
     if busy <= 0:
         fail("torch.profiler recorded no device time")
-    print(f"  profile of one frame ({'fused' if cfg.pallas_fused else 'staged'}): "
+    label = label or ("fused" if cfg.pallas_fused else "staged")
+    print(f"  profile of one frame ({label}): "
           f"host {wall:.1f} ms under the profiler, device busy {busy:.1f} ms in "
           f"{sum(counts.values())} kernel launches")
     for name in sorted(stages):
@@ -435,13 +449,146 @@ def check_frame(frame, cfg) -> None:
     print(f"  frame ok: mean={fr[..., :3].mean():.2f} std={fr[..., :3].std():.2f}")
 
 
+CONV_CHUNKS = 16               # passes of the converged frame: 16 x 8 spp = 128 spp
+REPLAY_FRAMES = 2              # full-width frames of each replay configuration
+
+
+def counts() -> tuple:
+    return k2.trace_path_cuda.launches, k1.trace_proc_cuda.launches
+
+
+def zero_counts() -> None:
+    k1.trace_proc_cuda.launches = 0
+    k2.trace_path_cuda.launches = 0
+
+
+def converged_phase(scene, cam, cfg, card) -> dict:
+    """A 128-spp converged frame of the graded scene through
+    Scene.render_converged (16 passes of the main path on the device): 16 K2
+    launches and no K1 launch, no host synchronisation inside the pass loop
+    (it runs under torch.cuda.set_sync_debug_mode("error"), the camera given
+    as device tensors), equal bit for bit to PathTracer's host loop."""
+    print(f"phase 4b: converged frame, {CONV_CHUNKS} passes x {cfg.samples_per_pixel} spp "
+          f"at {cfg.width}x{cfg.height} (Scene.render_converged; card: {card})", flush=True)
+    pt = PathTracer.on_scene(scene, cfg)
+    pose = CameraPose(*(np.asarray(v, np.float32) for v in cam))
+    cam_dev = pose.arrays(scene.device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    host = pt.render_converged(pose, total_spp=CONV_CHUNKS * cfg.samples_per_pixel, frame0=0)
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) * 1e3
+    # the detector is armed: a read-back to the host raises under it
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        float(cam_dev[0].sum())
+        fail("torch.cuda.set_sync_debug_mode('error') let a device-to-host read pass")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    times, launches = [], []
+    one = None
+    for rep in range(2):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = scene.render_converged(*cam_dev, 0, CONV_CHUNKS, cfg)
+        except RuntimeError as e:
+            fail(f"the converged pass loop synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        launches.append(counts())
+    n2, n1 = launches[0]
+    print(f"  converged frame: {[round(x, 1) for x in times]} ms "
+          f"({times[-1] / CONV_CHUNKS:.2f} ms per pass) | K2 launches = {n2} "
+          f"({CONV_CHUNKS} expected) | K1 launches = {n1} (0 expected) | host loop "
+          f"{host_ms:.1f} ms | no host sync in the pass loop (sync debug mode 'error')")
+    if launches[0] != (CONV_CHUNKS, 0) or launches[1] != (CONV_CHUNKS, 0):
+        fail(f"expected {CONV_CHUNKS} K2 and 0 K1 launches per converged frame, "
+             f"counted {launches}")
+    check_frame(one, cfg)
+    n_diff = int((one != host).sum())
+    print(f"  one loop vs PathTracer host loop: {n_diff} differing bytes")
+    if n_diff:
+        fail("the converged frame differs from the host loop's")
+    return {"chunks": CONV_CHUNKS, "spp": CONV_CHUNKS * cfg.samples_per_pixel,
+            "frame_ms": times[-1], "frames_ms": times, "ms_per_pass": times[-1] / CONV_CHUNKS,
+            "host_loop_ms": host_ms, "k2_launches": n2, "k1_launches": n1,
+            "differing_bytes_vs_host_loop": n_diff, "card": card}
+
+
+def plain_march(ps, o, d, t_min=0.001, t_max=1000.0, pd=None, tcap=None, **_):
+    """K1's plain version with trace_proc_cuda's call signature."""
+    return dda_proc.trace_proc(ps, o, d, t_min, t_max, pd, tcap)
+
+
+def replay_phase(scene, cam, cfg, card, profile=False) -> dict:
+    """The fused path's trace-record replay at full width: with
+    pallas_inkernel_radiance=False 1 K2 launch (trace mode) and 0 K1 launches
+    per frame; with pallas_inkernel_nee=False 1 K2 and 1 K1 launch (the
+    shadow rays of every bounce). At 160x120 each is held kernel vs plain
+    version (byte-identical) and against the in-kernel-radiance frame
+    (+-1 u8 at >= 99 % of pixels)."""
+    out = {}
+    small = cfg.replace(width=160, height=120)
+    f_ikr = scene.render(*cam, 0, small)
+    for name, change, k1_per_frame in (
+            ("replay_ikr_off", dict(pallas_inkernel_radiance=False), 0),
+            ("replay_split_nee", dict(pallas_inkernel_nee=False), 1)):
+        rc = cfg.replace(**change)
+        print(f"phase 4b: trace-record replay {name} ({change}) at {cfg.width}x{cfg.height}, "
+              f"{REPLAY_FRAMES} frames; 1 K2 and {k1_per_frame} K1 launches per frame "
+              f"expected (card: {card})", flush=True)
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, frame = render_frames(scene, cam, rc, REPLAY_FRAMES)
+        n2, n1 = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  frames: {[round(x, 1) for x in ms]} ms | K2 launches = {n2} | K1 launches = "
+              f"{n1} | peak memory {peak:.2f} GiB")
+        if (n2, n1) != (REPLAY_FRAMES, k1_per_frame * REPLAY_FRAMES):
+            fail(f"{name}: expected {REPLAY_FRAMES} K2 and {k1_per_frame * REPLAY_FRAMES} K1 "
+                 f"launches, counted {n2} and {n1}")
+        check_frame(frame, rc)
+        rs = rc.replace(width=160, height=120)
+        f_k = scene.render(*cam, 0, rs)
+        f_p = scene.render(*cam, 0, rs, path_tracer=k2.trace_path_plain, march_tracer=plain_march)
+        torch.cuda.synchronize()
+        n_diff = int((f_k != f_p).sum())
+        du8 = (f_k.to(torch.int16) - f_ikr.to(torch.int16)).abs().amax(-1)
+        within1 = float((du8 <= 1).float().mean())
+        print(f"  160x120: kernel vs plain version {n_diff} differing bytes; vs the "
+              f"in-kernel-radiance frame {float((du8 == 0).float().mean()):.4f} of pixels "
+              f"equal, {within1:.4f} within +-1 u8, max {int(du8.max())}")
+        if n_diff:
+            fail(f"{name}: kernel frame differs from the plain-version frame")
+        if within1 < 0.99:
+            fail(f"{name}: replay frame and in-kernel-radiance frame differ beyond +-1 u8 "
+                 f"at 1 % of pixels")
+        if profile:
+            profile_frame(scene, cam, rc, label=name)
+        steady = float(np.median(ms[1:])) if len(ms) > 1 else ms[0]
+        out[name] = {"frame_ms": steady, "frames_ms": ms, "peak_gib": peak,
+                     "k2_launches": n2, "k1_launches": n1,
+                     "differing_bytes_vs_plain": n_diff, "within1_vs_ikr": within1,
+                     "card": card}
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernel", action="store_true",
                     help="stop after the kernel-vs-plain phase (bring-up aid)")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one full-width frame of each configuration with "
-                         "torch.profiler and print device time per stage and per kernel")
+                    help="also trace one full-width frame of each configuration (the "
+                         "replays included) with torch.profiler and print device time "
+                         "per stage and per kernel")
     args = ap.parse_args()
     t_start = time.time()
 
@@ -662,7 +809,8 @@ def main() -> None:
         fail(f"expected {per_frame1 * STAGED_FRAMES} K1 and 0 K2 launches")
     check_frame(frame_st, staged_cfg)
     f_k = scene.render(*cam, 0, staged_cfg.replace(width=160, height=120))
-    f_p = scene.render(*cam, 0, staged_cfg.replace(width=160, height=120, proc_backend="xla"))
+    f_p = scene.render(*cam, 0, staged_cfg.replace(width=160, height=120, proc_backend="xla",
+                                                   beam_prepass=False))
     torch.cuda.synchronize()
     n_diff = int((f_k != f_p).sum())
     print(f"  160x120 staged frame, kernel vs plain version on the card: {n_diff} differing bytes")
@@ -671,6 +819,12 @@ def main() -> None:
     if args.profile:
         profile_frame(scene, cam, staged_cfg)
     k1.trace_proc_cuda.launches = launches1  # the comparison frames do not count
+    k2.trace_path_cuda.launches = launches2
+
+    # ---- phase 4b: converged frame and the trace-record replays ----
+    conv = converged_phase(scene, cam, cfg, card)
+    replays = replay_phase(scene, cam, cfg, card, profile=args.profile)
+    k1.trace_proc_cuda.launches = launches1
     k2.trace_path_cuda.launches = launches2
 
     # ---- phase 5: times at the main-path shapes ----
@@ -848,6 +1002,8 @@ def main() -> None:
             "replaces": "vrv_tpu/ops/pallas/trace_proc.py:560",
             "launches": launches1, "launches_per_frame": per_frame1,
             "path": "staged configuration (entry.STAGED_CONFIG)",
+            "launches_by_path": {"staged": launches1, "converged": conv["k1_launches"],
+                                 **{k: r["k1_launches"] for k, r in replays.items()}},
             "max_abs_err": results["max_abs_err"], "mismatches": results["mismatches"],
             "rays": results["rays"],
             "ms": ms_total, "plain_ms": plain_total,
@@ -871,6 +1027,9 @@ def main() -> None:
             "replaces": "vrv_tpu/ops/pallas/path_proc.py:143",
             "launches": launches2, "launches_per_frame": 1,
             "path": "main path, default RenderConfig",
+            "launches_by_path": {"main": launches2, "converged": conv["k2_launches"],
+                                 **{k: r["k2_launches"] for k, r in replays.items()}},
+            "converged": conv, "replays": replays,
             "max_abs_err": res2["max_abs_err"], "mismatches": res2["mismatches"],
             "rays": res2["rays"], "cases": cases2,
             "ms": ms2, "call_ms": ms2_call, "plain_ms": plain_ms2,

@@ -181,14 +181,12 @@ def test_backends_dispatch_and_agree_on_cpu():
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(proc_backend="pallas", pallas_fused=True, pallas_inkernel_radiance=False),
-     "trace-record replay"),
+    (dict(proc_backend="xla", beam_prepass=True), "grid tracers"),
     (dict(nee_mode="mixture"), "mixture NEE"),
     (dict(nee_mode="auto"), "mixture NEE"),
     (dict(tracer="rows"), "grid tracers"),
     (dict(mode="wavefront"), "wavefront"),
     (dict(debug_view="albedo"), "debug views"),
-    (dict(progressive=True), "converged/progressive"),
     (dict(rng="pcg"), "pcg"),
 ])
 def test_branches_that_wait_raise_and_name_the_roadmap(change, match):
@@ -196,6 +194,15 @@ def test_branches_that_wait_raise_and_name_the_roadmap(change, match):
     cfg = RenderConfig(**SMALL).replace(**change)
     with pytest.raises(NotImplementedError, match=match):
         tscene.render(*cam, 0, cfg)
+
+
+def test_progressive_flag_renders_the_ordinary_frame():
+    """The renderer does not read cfg.progressive (as in the JAX package:
+    only the progressive surfaces accumulate): the same bytes either way."""
+    _, cam, tscene = scenes()
+    want = torch.from_numpy(frames()[1])
+    assert torch.equal(tscene.render(*cam, 0, RenderConfig(**SMALL).replace(progressive=True)),
+                       want)
 
 
 def test_pack_bgra_matches_jax():

@@ -36,7 +36,8 @@ def test_package_has_the_slices_modules():
                  "ops.instances", "render.lightbvh", "ops.intersect", "ops.nee",
                  "ops.shade", "render.megakernel", "render.scene", "utils.image",
                  "utils.png", "ops.pallas.path_proc", "tools", "tools.vpu_probe",
-                 "tools.roofline", "tools.k2_ab"):
+                 "tools.roofline", "tools.k2_ab", "camera", "models",
+                 "models.pathtracer"):
         assert "vrv_tpu_torch." + want in mods, want
     for src in ("trace_proc.cu", "path_proc.cu", "proc_common.cuh", "vpu_probe.cu"):
         assert os.path.exists(os.path.join(REPO, "vrv_tpu_torch", "csrc", src)), src

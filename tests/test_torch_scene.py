@@ -171,8 +171,10 @@ def test_default_device_is_cuda_and_its_absence_raises():
 
 def test_unported_scene_surfaces_raise():
     _, _, tscene = scenes()
-    for fn in (tscene.render_sharded, tscene.render_converged, tscene.render_converged_sharded):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # render_converged is ported (tests/test_torch_converged.py); its sharded
+    # form waits for the parallel slice
+    for fn in (tscene.render_sharded, tscene.render_converged_sharded):
+        with pytest.raises(NotImplementedError, match="ROADMAP: parallel"):
             fn()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tscene.set_grid(tscene.grid_host, (0, 0, 0))

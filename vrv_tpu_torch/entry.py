@@ -107,15 +107,16 @@ def main(argv=None) -> None:
     kernels = args.backend == "pallas" or (args.backend == "auto" and dev.type == "cuda")
     if not kernels:
         # the staged plain path: 'auto' NEE would resolve to mixture NEE there,
-        # which waits for the BVH descent; split is what it resolves to on the
-        # fused path
-        cfg = cfg.replace(nee_mode="split")
+        # which waits for the BVH descent (split is what it resolves to on the
+        # fused path), and the plain versions' beam pre-pass waits for the
+        # grid tracers
+        cfg = cfg.replace(nee_mode="split", beam_prepass=False)
     path = "fused" if (kernels and cfg.pallas_fused) else "staged"
     scene, cam = graded_scene(args.grid, cfg, dev)
     g = args.grid
     print(f"world ({g}, {g}, {g})/render {cfg.width}x{cfg.height} spp={cfg.samples_per_pixel} "
           f"bounces={cfg.max_bounces} tracer={cfg.tracer}/{cfg.proc_backend} "
-          f"path={path} device={dev}")
+          f"path={path} beam_prepass={cfg.beam_prepass} device={dev}")
     frame = None
     for f in range(args.frames):
         t0 = time.perf_counter()

@@ -1,8 +1,8 @@
 """Next-event estimation: flat-list light sampling for split NEE.
 
 Counterpart of ``vrv_tpu/ops/nee.py`` (``LightSample``,
-``sample_light_flat`` without the ``sel_*`` inputs of the fused kernel,
-``EPSILON_BLOCK``). For the light counts the game plays at (a handful of
+``sample_light_flat`` with the ``sel_*`` inputs of the fused kernel's
+records, ``EPSILON_BLOCK``). For the light counts the game plays at (a handful of
 placed lamps + emissive entity faces) the importance of EVERY light triangle
 is computed and one is picked with exact importance-proportional
 probability; draw slots 7/8/9 pick the light and the point on it.
@@ -11,7 +11,10 @@ The JAX function reads the chosen light's features with a one-hot matrix
 product; here the row is indexed directly (same values). The cumsum-then-
 select semantics are kept: an exclusive one-hot over the running sum, and a
 ray whose one-hot is empty gets all-zero features (``tex = 0``,
-``area = 0``). ``torch.cumsum`` may associate differently on CUDA than on
+``area = 0``). With the path kernel's recorded light index (``sel_idx``,
+-1 = no sample) the selection draw is skipped; with its recorded chosen
+importance and selection total (``sel_imp``, ``sel_W``) the whole (n, L)
+importance field is skipped too. ``torch.cumsum`` may associate differently on CUDA than on
 the CPU, which can move the selection total ``W`` by an ulp between devices.
 The stochastic BVH descent (``traverse``, ``sample_light``) is not ported
 yet (ROADMAP: mixture NEE + BVH descent). Row-independent: large batches are
@@ -44,7 +47,8 @@ class LightSample(NamedTuple):
     valid: torch.Tensor      # (n,) bool — sample usable
 
 
-def _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp) -> LightSample:
+def _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp,
+                  sel_idx=None, sel_imp=None, sel_W=None) -> LightSample:
     tri = flat["tri"]            # (L, 3, 3) padded; pad rows power == 0
     power = flat["power"]        # (L,) luminance-per-area x full area
     area = flat["area"]          # (L,)
@@ -55,32 +59,48 @@ def _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp) -> Lig
     f32 = torch.float32
 
     v0, v1, v2 = tri[:, 0], tri[:, 1], tri[:, 2]
-    ctr = (v0 + v1 + v2) / 3.0
-    # epsilon-visibility: any vertex above the hemisphere plane
-    pn = normal[:, None, :]
-    vis = (
-        (_dot(v0[None] - point[:, None], pn) >= EPSILON_BLOCK)
-        | (_dot(v1[None] - point[:, None], pn) >= EPSILON_BLOCK)
-        | (_dot(v2[None] - point[:, None], pn) >= EPSILON_BLOCK)
-    )                                                   # (n, L)
-    dc = ctr[None] - point[:, None]                     # (n, L, 3)
-    d2c = _dot(dc, dc)
-    imp = torch.where(vis, power[None] / torch.clamp_min(d2c, 1e-30),
-                      torch.zeros((), dtype=f32, device=point.device))
+    zero = torch.zeros((), dtype=f32, device=point.device)
+    if sel_imp is not None:
+        # the kernel recorded the chosen light's importance and the selection
+        # total beside its index: only the chosen light's features are needed.
+        # Unselected rows record imp_c = 0 -> w = 0 and valid = False, the
+        # terminals an empty selection yields below
+        assert sel_idx is not None and sel_W is not None
+        any_sel = (sel_idx >= 0) & (sel_idx < L)
+        idx = torch.clamp(sel_idx.to(torch.int64), 0, L - 1)
+        imp_c_pre, W = sel_imp, sel_W
+    else:
+        ctr = (v0 + v1 + v2) / 3.0
+        # epsilon-visibility: any vertex above the hemisphere plane
+        pn = normal[:, None, :]
+        vis = (
+            (_dot(v0[None] - point[:, None], pn) >= EPSILON_BLOCK)
+            | (_dot(v1[None] - point[:, None], pn) >= EPSILON_BLOCK)
+            | (_dot(v2[None] - point[:, None], pn) >= EPSILON_BLOCK)
+        )                                                   # (n, L)
+        dc = ctr[None] - point[:, None]                     # (n, L, 3)
+        d2c = _dot(dc, dc)
+        imp = torch.where(vis, power[None] / torch.clamp_min(d2c, 1e-30), zero)
 
-    cum = torch.cumsum(imp, dim=1)
-    W = cum[:, -1]                                      # == selection total
-    r = rng.draw(seed, 7) * W
-    prev = torch.cat([torch.zeros((n, 1), dtype=f32, device=point.device),
-                      cum[:, :-1]], dim=1)
-    sel = (cum > r[:, None]) & (prev <= r[:, None])     # exclusive one-hot
-    any_sel = sel.any(dim=1)
-    idx = sel.to(torch.uint8).argmax(dim=1)             # the one-hot's index
+        cum = torch.cumsum(imp, dim=1)
+        W = cum[:, -1]                                      # == selection total
+        imp_c_pre = None
+        if sel_idx is not None:
+            # the kernel's recorded light (-1 = no sample) replaces the
+            # draw-7 selection; the pdf bookkeeping is unchanged
+            any_sel = (sel_idx >= 0) & (sel_idx < L)
+            idx = torch.clamp(sel_idx.to(torch.int64), 0, L - 1)
+        else:
+            r = rng.draw(seed, 7) * W
+            prev = torch.cat([torch.zeros((n, 1), dtype=f32, device=point.device),
+                              cum[:, :-1]], dim=1)
+            sel = (cum > r[:, None]) & (prev <= r[:, None])  # exclusive one-hot
+            any_sel = sel.any(dim=1)
+            idx = sel.to(torch.uint8).argmax(dim=1)         # the one-hot's index
 
     # chosen-light features by direct indexing; zero rows where nothing
     # was selected (what the all-false one-hot product yields)
     m1 = any_sel[:, None]
-    zero = torch.zeros((), dtype=f32, device=point.device)
     cv0 = torch.where(m1, v0[idx], zero)
     cv1 = torch.where(m1, v1[idx], zero)
     cv2 = torch.where(m1, v2[idx], zero)
@@ -90,7 +110,8 @@ def _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp) -> Lig
     ctex = torch.where(any_sel, tex[idx].to(torch.int32),
                        torch.zeros((), dtype=torch.int32, device=point.device))
     carea = torch.where(any_sel, area[idx], zero)
-    imp_c = torch.where(any_sel, imp.gather(1, idx[:, None])[:, 0], zero)
+    imp_c = (imp_c_pre if imp_c_pre is not None
+             else torch.where(any_sel, imp.gather(1, idx[:, None])[:, 0], zero))
 
     # uniform point on the full triangle (sqrt warp)
     su = torch.sqrt(rng.draw(seed, 8))
@@ -131,17 +152,26 @@ def _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp) -> Lig
 
 def sample_light_flat(point, normal, seed, flat,
                       importance_scale: float = 10.0,
-                      mis_clamp: float = 0.5) -> LightSample:
+                      mis_clamp: float = 0.5,
+                      sel_idx=None, sel_imp=None, sel_W=None) -> LightSample:
     """Flat-list light sampling for small light sets (<= ~64 triangles).
 
     importance_j = power_j * eps_visible_j / dist_c^2; the direct-term pdf
-    is importance_j / W x 1 / area_j (uniform point on the full triangle)."""
+    is importance_j / W x 1 / area_j (uniform point on the full triangle).
+    sel_idx: (n,) int32 light indices the path kernel recorded (-1 = no
+    sample), replacing the selection draw; sel_imp / sel_W: its recorded
+    chosen importance and selection total, replacing the importance field."""
     n = point.shape[0]
+    sel = (sel_idx, sel_imp, sel_W)
+
+    def part(x, i):
+        return None if x is None else x[i:i + _CHUNK]
+
     if n <= _CHUNK:
-        return _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp)
+        return _sample_chunk(point, normal, seed, flat, importance_scale, mis_clamp, *sel)
     parts = [
         _sample_chunk(point[i:i + _CHUNK], normal[i:i + _CHUNK], seed[i:i + _CHUNK],
-                      flat, importance_scale, mis_clamp)
+                      flat, importance_scale, mis_clamp, *(part(x, i) for x in sel))
         for i in range(0, n, _CHUNK)
     ]
     return LightSample(*[torch.cat(xs) for xs in zip(*parts)])

@@ -29,7 +29,11 @@ Trace mode marches it (it records ``vis``), as the JAX kernel does.
 
 Dispatch rule: a CPU tensor goes to the plain version — the only way the
 wrapper ever takes it; a CUDA tensor launches the kernel or raises. The
-wrapper counts its launches in ``trace_path_cuda.launches``.
+wrapper counts its launches in ``trace_path_cuda.launches``. The call's
+static tables (``kernel_tables``, ``launch_args``) are built and copied to
+the card once per scene state and configuration (``_launch_tables``): a
+later launch with the same inputs moves nothing from the host, so a loop of
+frames or sample passes never waits on a host copy.
 
 Every constant division of the JAX kernel stays an IEEE division here
 (``_div``: a tensor divisor, since PyTorch on CUDA turns division by a
@@ -40,6 +44,7 @@ without fast math, agrees with this file bit for bit on one device.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -897,9 +902,53 @@ def launch_args(spec: _Spec, ps, pd, n: int, t_min: float, t_max: float, dev):
     return tab, words, ip, fp
 
 
-def _launch_flat(spec: _Spec, ps, pd, o, d, seeds, t_min, t_max):
+_TABLES: "OrderedDict" = OrderedDict()
+TABLE_CACHE = 8             # launch-table sets kept (scene states x configs)
+
+
+def _fingerprint(x, keep: list):
+    """Hashable description of an argument: tensors by identity and version
+    counter (an in-place write bumps it), containers by their items. The
+    tensors go to ``keep``, so while a cache entry holds them no other
+    tensor can take their ids."""
+    if isinstance(x, torch.Tensor):
+        keep.append(x)
+        return ("tensor", id(x), x._version)
+    if isinstance(x, dict):
+        return ("dict",) + tuple((k, _fingerprint(v, keep)) for k, v in sorted(x.items()))
+    if isinstance(x, (tuple, list)):
+        return ("seq",) + tuple(_fingerprint(v, keep) for v in x)
+    return x
+
+
+def _launch_tables(ps, pd, B, dev, inst, inst_static, lights, nee_pdf, radiance,
+                   light_em, nee_scale, nee_clamp, emission_gain, t_min, t_max):
+    """(spec, launch_args) of one call, built once per scene state and
+    configuration: the tables are copied to the card at the first launch and
+    reused by every later one with the same inputs (same tensors, none written
+    since), so a launch moves nothing from the host and never waits on it."""
+    keep: list = []
+    key = (ps, int(B), str(dev), inst_static, light_em, bool(nee_pdf), bool(radiance),
+           float(nee_scale), float(nee_clamp), float(emission_gain), float(t_min),
+           float(t_max), _fingerprint(pd, keep), _fingerprint(inst, keep),
+           _fingerprint(lights, keep))
+    hit = _TABLES.get(key)
+    if hit is not None:
+        _TABLES.move_to_end(key)
+        return hit[1], hit[2]
+    spec = _make_spec(ps, pd, B, dev, inst, inst_static, lights, nee_pdf, radiance,
+                      light_em, nee_scale, nee_clamp, emission_gain)
+    args = launch_args(spec, ps, pd, 0, t_min, t_max, dev)
+    _TABLES[key] = (keep, spec, args)
+    while len(_TABLES) > TABLE_CACHE:
+        _TABLES.popitem(last=False)
+    return spec, args
+
+
+def _launch_flat(spec: _Spec, ps, pd, o, d, seeds, t_min, t_max, args=None):
     """Launch the kernel on flat CUDA rays; raises on anything it does not
-    take and never runs the plain version."""
+    take and never runs the plain version. args: ``launch_args``'s result
+    for these inputs when the caller has it (``_launch_tables``)."""
     if not (isinstance(o, torch.Tensor) and o.is_cuda):
         raise ValueError("the path kernel takes CUDA tensors only")
     dev = o.device
@@ -907,7 +956,7 @@ def _launch_flat(spec: _Spec, ps, pd, o, d, seeds, t_min, t_max):
     _check("origin", o, torch.float32, (n, 3), dev)
     _check("direction", d, torch.float32, (n, 3), dev)
     _check("seeds", seeds, torch.int32, (n,), dev)
-    tab, words, ip, fp = launch_args(spec, ps, pd, n, t_min, t_max, dev)
+    tab, words, ip, fp = args or launch_args(spec, ps, pd, n, t_min, t_max, dev)
     irows, frows = record_layout(spec)
     iout = torch.empty((len(irows), n), dtype=torch.int32, device=dev)
     fout = torch.empty((len(frows), n), dtype=torch.float32, device=dev)
@@ -995,13 +1044,16 @@ def _run(impl, ps, origin, direction, seeds, n_bounces, t_min, t_max, pd, inst,
         # uint32 words of any integer dtype -> their int32 bit patterns
         sd = (sd.to(torch.int64) & 0xFFFFFFFF).to(torch.int32)
     sd = sd.contiguous()
-    spec = _make_spec(ps, pd, int(n_bounces), o.device, inst, inst_static, lights,
-                      nee_pdf, radiance, light_em, nee_scale, nee_clamp,
-                      emission_gain)
     if impl == "plain":
+        spec = _make_spec(ps, pd, int(n_bounces), o.device, inst, inst_static, lights,
+                          nee_pdf, radiance, light_em, nee_scale, nee_clamp,
+                          emission_gain)
         iout, fout = _plain_flat(spec, ps, pd, o, d, sd, float(t_min), float(t_max), stats)
     else:
-        iout, fout = _launch_flat(spec, ps, pd, o, d, sd, float(t_min), float(t_max))
+        spec, args = _launch_tables(ps, pd, int(n_bounces), o.device, inst, inst_static,
+                                    lights, nee_pdf, radiance, light_em, nee_scale,
+                                    nee_clamp, emission_gain, float(t_min), float(t_max))
+        iout, fout = _launch_flat(spec, ps, pd, o, d, sd, float(t_min), float(t_max), args)
     if raw:
         return spec, iout, fout
     return _structure(spec, ps, pd, iout, fout, shape)

@@ -1,8 +1,9 @@
 """Bounce shading: BSDF branches, texture fetch, split NEE.
 
 Counterpart of ``vrv_tpu/ops/shade.py`` (``BounceResult``, ``ResolvedHit``,
-``_fetch_atlas``, ``_FACE_CONST``, ``resolve_hit``, ``shade_resolved``,
-``do_bounce``) over a flat ray batch:
+``_fetch_atlas``, ``_FACE_CONST``, ``resolve_hit``, ``shade_resolved`` (also
+with the path kernel's recorded light choices), ``do_bounce``) over a flat
+ray batch:
 
   - miss -> sky emissivity, dead ray
   - material fetch at t = block*6 + face with nearest sampling of the 16x16
@@ -268,10 +269,21 @@ def shade_resolved(
     nee_mode: str = "mixture",
     w_prev: Optional[torch.Tensor] = None,
     light_tex_set: Optional[tuple] = None,
+    flat_sel_idx: Optional[torch.Tensor] = None,
+    flat_sel_imp: Optional[torch.Tensor] = None,
+    flat_sel_W: Optional[torch.Tensor] = None,
     tex_fetch: str = "split",
 ) -> BounceResult:
     """Texture fetch + BSDF branch + NEE over pre-resolved hits.
-    Row-independent (every output row depends only on that row's inputs)."""
+    Row-independent (every output row depends only on that row's inputs), so
+    one call over several bounces' concatenated rows equals one call per
+    bounce bit for bit.
+
+    flat_sel_idx / flat_sel_imp / flat_sel_W: the path kernel's in-kernel NEE
+    records (light index, -1 = no sample; chosen importance; selection
+    total), passed to ``nee.sample_light_flat`` in split mode: the direct
+    term is then computed for exactly the light the kernel marched a shadow
+    ray to, and the caller multiplies by the kernel's recorded visibility."""
     n = direction.shape[0]
     hit = rh.hit
     normal, tangent, bitangent = rh.normal, rh.tangent, rh.bitangent
@@ -326,6 +338,7 @@ def shade_resolved(
             new_origin, normal, seed, bvh["flat"],
             importance_scale=nee_importance_scale,
             mis_clamp=nee_mis_clamp,
+            sel_idx=flat_sel_idx, sel_imp=flat_sel_imp, sel_W=flat_sel_W,
         )
         new_dir_l = dir_hemi
         cos_theta = _dot(new_dir_l, normal)

@@ -6,26 +6,37 @@ accumulation ``color = sum_i E_i * prod_{j<i} R_j`` masked to the bounces a
 path actually executed, split NEE, sample mean and BGRA u8 packing (linear
 radiance hard-clipped, no transfer function).
 
-Two branches are ported:
+Three branches are ported:
 
   - FUSED (the default configuration): ONE launch of the path kernel K2
     (``ops/pallas/path_proc.trace_path_cuda``) traces every bounce, the
     shadow rays and the instance test of every ray in radiance-record mode,
     on the 32x32-patch ray layout; the tensor code here is one texel fetch
     per bounce plus the exact accumulation chain over the records;
+  - the fused path's TRACE-RECORD REPLAY (``pallas_inkernel_radiance=False``,
+    or lights whose emissive palettes the kernel cannot hold, or
+    ``pallas_inkernel_nee=False``): ONE K2 launch in trace-record mode, then
+    the shading in tensor code over its per-bounce hits, sampled directions,
+    instance records and (with in-kernel NEE) light choices and visibility
+    bits — batched (``pallas_batched_shade``: one ``shade_resolved`` call
+    over the NEE bounces' rows and one over the last bounce) or bounce by
+    bounce; without in-kernel NEE the shadow rays of every bounce go through
+    ONE launch of the march kernel K1;
   - STAGED (``pallas_fused=False``, ``nee_mode='split'``): every bounce and
     one batched shadow trace go through the single-segment march
-    (``trace_batch``), with shading in tensor code.
+    (``_trace_batch``), with shading in tensor code.
 
-The fused path's trace-record replay (``pallas_inkernel_radiance=False``),
-the beam pre-pass, the grid tracers, the debug views and the wavefront
-modes are not ported yet; a config that asks for one of them raises
+``RenderConfig.progressive`` is not read here (as in the JAX renderer: only
+the progressive surfaces accumulate). The beam pre-pass of the plain
+versions, the grid tracers, the debug views and the wavefront modes are not
+ported yet; a config that asks for one of them raises
 ``NotImplementedError`` naming the ROADMAP item — it never renders through
 another path silently.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -61,16 +72,23 @@ def _check_supported(cfg: RenderConfig, proc_static, nee_active: bool,
             f"debug_view={cfg.debug_view!r}: the debug views are not ported "
             "(ROADMAP: debug views of the staged megakernel)")
     if cfg.rng != "murmur3":
-        raise NotImplementedError("rng='pcg' is not ported (ROADMAP: tools/docs)")
-    if cfg.progressive:
         raise NotImplementedError(
-            "progressive accumulation is not ported (ROADMAP: converged/progressive)")
+            "rng='pcg' is not ported (ROADMAP Queue 1 item 5: debug views of the "
+            "staged megakernel and rng='pcg')")
     if cfg.tracer != "proc" or proc_static is None:
         raise NotImplementedError(
             f"tracer={cfg.tracer!r} (or a scene without a proc bundle): the grid "
             "tracers are not ported (ROADMAP: grid tracers)")
     if cfg.proc_backend not in ("pallas", "xla", "auto"):
         raise ValueError(f"proc_backend {cfg.proc_backend!r}")
+    if cfg.beam_prepass and not use_kernel:
+        # the JAX renderer advances the primary rays by its distance-field
+        # cone march wherever its kernels do not run; that pre-pass (and the
+        # scene's distance field) belongs to the grid tracers
+        raise NotImplementedError(
+            "beam_prepass=True with the plain versions (proc_backend='xla', or "
+            "'auto' off a CUDA device): the beam pre-pass is not ported (ROADMAP "
+            "Queue 1 item 8: grid tracers); pass beam_prepass=False")
     inst_in_kernel = inst is not None and inst_static is not None and cfg.pallas_inst
     fused_candidate = (
         use_kernel
@@ -173,6 +191,7 @@ def render_samples(
     trace_log: Optional[list] = None,
     path_log: Optional[list] = None,
     path_tracer=None,
+    march_tracer=None,
 ) -> torch.Tensor:
     """Render linear radiance per sample: (spp, H, W, 3) float32.
 
@@ -180,13 +199,15 @@ def render_samples(
     live on ``eye.device``. occupancy_out: optional list; appends the
     live-ray count entering each bounce. trace_log: optional list; appends
     ``(origin, direction, tcap)`` of every single-segment march launch (the
-    staged branch), path_log: ``(origin, direction, seeds)`` of every path
-    kernel launch (the fused branch), in order — the shapes a benchmark
-    needs to time the kernels as the frame calls them. path_tracer: a
-    callable with ``trace_path_cuda``'s signature that replaces it (e.g.
+    staged branch and the replay's shadow trace), path_log: ``(origin,
+    direction, seeds)`` of every path kernel launch (the fused branch and
+    the replay), in order — the shapes a benchmark needs to time the kernels
+    as the frame calls them. path_tracer: a callable with
+    ``trace_path_cuda``'s signature that replaces it (e.g.
     ``trace_path_plain`` to render the fused frame through the kernel's
-    plain version on the card). ``dist``/``rows`` belong to branches that
-    are not ported and are ignored."""
+    plain version on the card); march_tracer: the same for the march kernel
+    (``trace_proc_cuda``'s signature). ``dist``/``rows`` belong to branches
+    that are not ported and are ignored."""
     W = cfg.width
     H = local_height or cfg.height
     S = local_spp or cfg.samples_per_pixel
@@ -200,7 +221,7 @@ def render_samples(
     )
     split_nee, fused, inst_in_kernel = _check_supported(
         cfg, proc_static, nee_active, use_kernel, inst, inst_static)
-    ikr = False
+    ikr = nee_in_kernel = False
     if fused:
         # in-kernel NEE: the kernel samples the flat light list and marches
         # the shadow rays as sub-phases of its per-ray state machine
@@ -209,18 +230,13 @@ def render_samples(
             and cfg.max_bounces > 1 and bvh.get("flat") is not None
         )
         # in-kernel radiance: the kernel also resolves the material key, the
-        # scatter branch and every NEE direct-term factor but the texel
+        # scatter branch and every NEE direct-term factor but the texel;
+        # otherwise the trace records are replayed below
         ikr = (
             cfg.pallas_inkernel_radiance and "packed" in materials
             and (not split_nee or cfg.max_bounces == 1
                  or (nee_in_kernel and light_em is not None))
         )
-        if not ikr:
-            raise NotImplementedError(
-                "the fused path with per-bounce trace records and a batched "
-                "shading replay (pallas_inkernel_radiance=False, or lights without "
-                "Scene.light_em) is not ported (ROADMAP Queue 1: fused "
-                "trace-record replay); the in-kernel-radiance path is")
 
     # the fused path's row-major layout: consecutive rows of the (H*S, W) ray
     # image hold the same pixels across samples
@@ -236,54 +252,110 @@ def render_samples(
     d = d.reshape(n, 3).contiguous()
     seeds = sample_seed.reshape(n)
 
-    if fused:
+    if fused and ikr:
         return _render_fused(
             cfg, o, d, seeds, S, H, W, materials, bvh, inst, inst_static,
             inst_in_kernel, split_nee, proc_static, proc, light_em,
             ray_layout, occupancy_out, path_log, path_tracer,
         )
 
+    trace = functools.partial(_trace_batch, cfg, use_kernel, proc_static, proc,
+                              trace_log, march_tracer)
+    fused_pad = None
+    rec = None
+    if fused:
+        # the replay: ONE path-kernel launch in trace-record mode on the
+        # radiance branch's ray layout; shading stays on that layout
+        from vrv_tpu_torch.ops.pallas.path_proc import trace_path_cuda
+
+        o, d, seeds, fused_pad = _fused_layout(cfg, o, d, seeds, S * H, W)
+        if path_log is not None:
+            path_log.append((o, d, seeds))
+        tracer = path_tracer or trace_path_cuda
+        with record_function("fused_path_trace"):
+            rec = tracer(
+                proc_static._replace(use_coarse=False), o, d, seeds, cfg.max_bounces,
+                t_min=cfg.t_min, t_max=cfg.t_max, pd=proc,
+                inst=inst if inst_in_kernel else None,
+                inst_static=inst_static if inst_in_kernel else None,
+                lights=bvh["flat"] if nee_in_kernel else None,
+                nee_pdf=cfg.pallas_nee_record_pdf,
+            )
+    shade_kw = dict(
+        materials=materials, bvh=bvh, bvh_max_depth=bvh_max_depth, inst=inst,
+        split_nee=split_nee, light_tex_set=light_tex_set, n_real=n,
+        occupancy_out=occupancy_out,
+    )
+    if rec is not None and cfg.pallas_batched_shade:
+        color, split = _shade_batched(cfg, o, d, seeds, rec, inst_in_kernel, **shade_kw)
+    else:
+        color, split = _shade_loop(cfg, o, d, seeds, rec, trace, **shade_kw)
+    if split_nee and split["direct"]:
+        color = _add_direct(cfg, color, split, inst, trace)
+    return _restore_layout(color, fused_pad, ray_layout, S, H, W)
+
+
+def _trace_batch(cfg, use_kernel, proc_static, proc, trace_log, march_tracer,
+                 o_tr, d_tr, tcap=None):
+    """Dispatch a flat ray batch to the configured tracer — the bounce traces
+    and the batched shadow rays use the same path. tcap: per-ray t ceiling
+    (shadow rays pass their light distance)."""
+    if trace_log is not None:
+        trace_log.append((o_tr, d_tr, tcap))
+    if use_kernel:
+        from vrv_tpu_torch.ops.pallas.trace_proc import trace_proc_cuda
+
+        return (march_tracer or trace_proc_cuda)(
+            proc_static, o_tr, d_tr, t_min=cfg.t_min, t_max=cfg.t_max,
+            pd=proc, tcap=tcap,
+            unroll=cfg.pallas_unroll or None,
+            march_opt=int(cfg.pallas_march_opt),
+        )
+    from vrv_tpu_torch.ops.dda_proc import trace_proc
+
+    return trace_proc(
+        proc_static._replace(use_coarse=cfg.proc_coarse),
+        o_tr, d_tr, t_min=cfg.t_min, t_max=cfg.t_max, pd=proc, tcap=tcap,
+    )
+
+
+def _new_split() -> dict:
+    """Split-NEE per-bounce records, consumed by ``_add_direct``: masked
+    throughput, pre-visibility direct term, and either the shadow rays
+    (origin, direction, light distance) or the kernel's visibility bits."""
+    return {"T": [], "direct": [], "so": [], "sd": [], "dist": [], "kvis": []}
+
+
+def _shade_loop(cfg, o, d, seeds, rec, trace, *, materials, bvh, bvh_max_depth,
+                inst, split_nee, light_tex_set, n_real, occupancy_out):
+    """Trace + shade bounce by bounce (the staged branch), or with ``rec`` =
+    the path kernel's trace records, replay its hits, instance records and
+    sampled directions bounce by bounce (the replay's per-bounce loop)."""
+    n = o.shape[0]
+    dev = o.device
     f32 = torch.float32
+    fused_traces, fused_dirs, fused_ihits = rec[:3] if rec is not None else (None,) * 3
     color = torch.zeros((n, 3), dtype=f32, device=dev)
     throughput = torch.ones((n, 3), dtype=f32, device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     zero3 = torch.zeros((), dtype=f32, device=dev)
-
-    def trace_batch(o_tr, d_tr, tcap=None):
-        """Dispatch a flat ray batch to the configured tracer — the bounce
-        traces and the batched shadow rays use the same path. tcap: per-ray
-        t ceiling (shadow rays pass their light distance)."""
-        if trace_log is not None:
-            trace_log.append((o_tr, d_tr, tcap))
-        if use_kernel:
-            from vrv_tpu_torch.ops.pallas.trace_proc import trace_proc_cuda
-
-            return trace_proc_cuda(
-                proc_static, o_tr, d_tr, t_min=cfg.t_min, t_max=cfg.t_max,
-                pd=proc, tcap=tcap,
-                unroll=cfg.pallas_unroll or None,
-                march_opt=int(cfg.pallas_march_opt),
-            )
-        from vrv_tpu_torch.ops.dda_proc import trace_proc
-
-        return trace_proc(
-            proc_static._replace(use_coarse=cfg.proc_coarse),
-            o_tr, d_tr, t_min=cfg.t_min, t_max=cfg.t_max, pd=proc, tcap=tcap,
-        )
-
-    # split-NEE per-bounce records (one batched shadow trace after the loop)
-    split_T, split_direct, split_so, split_sd, split_dist = [], [], [], [], []
+    split = _new_split()
     w_prev = None
 
     for bounce in range(cfg.max_bounces):
         if occupancy_out is not None:
-            occupancy_out.append(int(alive.sum()))
+            # min() strips the padding rays, alive until bounce 0 misses them
+            occupancy_out.append(min(int(alive.sum()), n_real))
         # named ranges make the per-stage costs legible in a profiler trace
         with record_function(f"trace_b{bounce}"):
-            tr = trace_batch(o, d)
+            tr = fused_traces[bounce] if fused_traces is not None else trace(o, d)
         bounce_seed = rng.murmur3_combine(seeds, bounce)
         inst_hit = None
-        if inst is not None:
+        if fused_ihits is not None:
+            # the kernel resolved instance vs voxel per bounce and marched the
+            # matching continuation; replay its records
+            inst_hit = fused_ihits[bounce]
+        elif inst is not None:
             from vrv_tpu_torch.ops.instances import trace_instances
 
             with record_function(f"instances_b{bounce}"):
@@ -310,28 +382,138 @@ def render_samples(
                 tex_fetch=cfg.tex_fetch,
             )
         if split_nee and not last:
-            split_T.append(torch.where(alive[:, None], throughput, zero3))
-            split_direct.append(br.direct)
-            split_so.append(br.new_origin)
-            split_sd.append(br.shadow_dir)
-            split_dist.append(br.shadow_dist)
+            split["T"].append(torch.where(alive[:, None], throughput, zero3))
+            split["direct"].append(br.direct)
+            split["so"].append(br.new_origin)
+            split["sd"].append(br.shadow_dir)
+            split["dist"].append(br.shadow_dist)
         w_prev = br.w
         color = color + torch.where(alive[:, None], throughput * br.emissivity, zero3)
         throughput = torch.where(alive[:, None], throughput * br.reflectivity, zero3)
         alive = alive & ~br.miss
         o = br.new_origin
-        d = br.new_direction
+        if fused_dirs is not None and bounce + 1 < cfg.max_bounces:
+            # the direction the kernel actually marched for the next bounce
+            d = fused_dirs[bounce]
+        else:
+            d = br.new_direction
+    return color, split
 
-    if split_nee and split_direct:
-        b_s = len(split_direct)
-        # one batched shadow trace for ALL bounces: shadow rays are
-        # independent of path continuation, so they never gate the chain
-        so_cat = torch.cat(split_so)
-        sd_cat = torch.cat(split_sd)
-        dist_cat = torch.cat(split_dist)
+
+def _shade_batched(cfg, o, d, seeds, rec, inst_in_kernel, *, materials, bvh,
+                   bvh_max_depth, inst, split_nee, light_tex_set, n_real,
+                   occupancy_out):
+    """The replay with batched shading: the hit geometry resolved bounce by
+    bounce (the origin chain is sequential), then ONE ``shade_resolved``
+    call over the NEE bounces' concatenated rows and one over the last
+    bounce (one call in all without lights), then the accumulation chain.
+    ``shade_resolved`` is row-independent, so this equals the per-bounce
+    loop bit for bit."""
+    fused_traces, fused_dirs, fused_ihits, fused_nee = rec
+    B = cfg.max_bounces
+    n = o.shape[0]
+    dev = o.device
+    f32 = torch.float32
+    zero3 = torch.zeros((), dtype=f32, device=dev)
+    rhs, d_list, seed_list = [], [], []
+    o_b, d_b = o, d
+    for b in range(B):
+        with record_function(f"resolve_b{b}"):
+            rhs.append(shade.resolve_hit(
+                o_b, d_b, fused_traces[b],
+                inst=inst if inst_in_kernel else None,
+                inst_hit=fused_ihits[b] if fused_ihits is not None else None,
+            ))
+        d_list.append(d_b)
+        seed_list.append(rng.murmur3_combine(seeds, b))
+        o_b = rhs[b].new_origin
+        if b + 1 < B:
+            d_b = fused_dirs[b]
+
+    def _cat(xs):
+        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=0)
+
+    # the last bounce shades without NEE (split mode truncates there), so it
+    # gets its own small call; in scenes without lights one call covers all
+    groups = ([(list(range(B - 1)), bvh), ([B - 1], None)]
+              if (split_nee and B > 1) else [(list(range(B)), None)])
+    brs = [None] * B
+    for idx, bvh_g in groups:
+        rh = shade.ResolvedHit(*[_cat([getattr(rhs[b], f) for b in idx])
+                                 for f in shade.ResolvedHit._fields])
+        rec_nee = fused_nee is not None and bvh_g is not None
+        # with the kernel's recorded (imp_c, W) the sampler skips the whole
+        # (n, L) importance field
+        rec_pdf = rec_nee and len(fused_nee[0]) > 2
+        with record_function("shade_batched"):
+            br_g = shade.shade_resolved(
+                rh, _cat([d_list[b] for b in idx]), _cat([seed_list[b] for b in idx]),
+                materials, bvh_g,
+                sky_emission=cfg.sky_emission,
+                emission_gain=cfg.emission_gain,
+                nee_importance_scale=cfg.nee_importance_scale,
+                nee_mis_clamp=cfg.nee_mis_clamp,
+                bvh_max_depth=bvh_max_depth,
+                nee_mode="split" if split_nee else "mixture",
+                w_prev=None,
+                light_tex_set=light_tex_set if split_nee else None,
+                flat_sel_idx=_cat([fused_nee[b][0] for b in idx]) if rec_nee else None,
+                flat_sel_imp=_cat([fused_nee[b][2] for b in idx]) if rec_pdf else None,
+                flat_sel_W=_cat([fused_nee[b][3] for b in idx]) if rec_pdf else None,
+                tex_fetch=cfg.tex_fetch,
+            )
+        for j, b in enumerate(idx):
+            brs[b] = shade.BounceResult(*[
+                None if x is None else x[j * n:(j + 1) * n] for x in br_g])
+
+    # the accumulation chain in the per-bounce loop's operation order; the
+    # (1 - w_prev) emission complement moves here, masked to hits (exactly
+    # the multiply the loop does inside the shading call)
+    color = torch.zeros((n, 3), dtype=f32, device=dev)
+    throughput = torch.ones((n, 3), dtype=f32, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    split = _new_split()
+    w_prev = None
+    for b in range(B):
+        if occupancy_out is not None:
+            occupancy_out.append(min(int(alive.sum()), n_real))
+        br = brs[b]
+        e_b = br.emissivity
+        if split_nee and w_prev is not None:
+            e_b = torch.where(br.miss[:, None], e_b, e_b * (1.0 - w_prev)[:, None])
+        if split_nee and b < B - 1:
+            split["T"].append(torch.where(alive[:, None], throughput, zero3))
+            split["direct"].append(br.direct)
+            if fused_nee is not None:
+                # in-kernel NEE already marched the shadow rays; only its
+                # recorded visibility feeds the direct term
+                split["kvis"].append(fused_nee[b][1])
+            else:
+                split["so"].append(br.new_origin)
+                split["sd"].append(br.shadow_dir)
+                split["dist"].append(br.shadow_dist)
+        w_prev = br.w
+        color = color + torch.where(alive[:, None], throughput * e_b, zero3)
+        throughput = torch.where(alive[:, None], throughput * br.reflectivity, zero3)
+        alive = alive & ~br.miss
+    return color, split
+
+
+def _add_direct(cfg, color, split, inst, trace):
+    """Add the split-NEE direct term of every non-last bounce: visibility
+    from the kernel's recorded bits, or from ONE batched shadow trace over
+    all bounces' shadow rays (independent of path continuation, so they
+    never gate the chain)."""
+    n = color.shape[0]
+    if split["kvis"]:
+        vis = torch.cat(split["kvis"])
+    else:
+        so_cat = torch.cat(split["so"])
+        sd_cat = torch.cat(split["sd"])
+        dist_cat = torch.cat(split["dist"])
         eps = 1e-3 + 1e-3 * dist_cat
         with record_function("nee_shadow_trace"):
-            sh = trace_batch(so_cat, sd_cat, tcap=dist_cat - eps)
+            sh = trace(so_cat, sd_cat, tcap=dist_cat - eps)
         # visible iff nothing resolves strictly before the light point
         vis = (~sh.hit) | (sh.t >= dist_cat - eps)
         if inst is not None:
@@ -344,12 +526,41 @@ def render_samples(
                     t_min=cfg.t_min, t_max=cfg.t_max,
                 )
             vis = vis & ~(ish.hit & (ish.t < dist_cat - eps))
-        vis3 = vis.to(f32)[:, None]
-        for b in range(b_s):
-            color = color + (
-                split_T[b] * split_direct[b] * vis3[b * n:(b + 1) * n]
-            )
+    with record_function("nee_direct_accum"):
+        vis3 = vis.to(torch.float32)[:, None]
+        for b in range(len(split["direct"])):
+            color = color + (split["T"][b] * split["direct"][b] * vis3[b * n:(b + 1) * n])
+    return color
 
+
+def _fused_layout(cfg, o, d, seeds, R: int, W: int):
+    """The fused path's ray layout: 32x32 (or the configured) pixel patches,
+    or the rows padded to the (8, 128) grid, or unchanged. Returns (o, d,
+    seeds, pad) with pad the description ``_restore_layout`` inverts."""
+    if cfg.pallas_tile2d and cfg.pallas_prepad and cfg.pallas_tile != "8x128":
+        # patch re-layout: every consecutive th*tw rays are one th x tw pixel
+        # patch, so a warp of the kernel holds 32 neighbouring pixels
+        th, tw = (int(v) for v in cfg.pallas_tile.split("x"))
+        return (tile_layout(o, R, W, th, tw), tile_layout(d, R, W, th, tw),
+                tile_layout(seeds, R, W, th, tw), ("tile", th, tw))
+    if cfg.pallas_tile2d and cfg.pallas_prepad:
+        Rp, Wp = (R + 7) // 8 * 8, (W + 127) // 128 * 128
+        if (Rp, Wp) != (R, W):
+            o, d, seeds = (pad_layout(x, R, W, Rp, Wp) for x in (o, d, seeds))
+            return o, d, seeds, (Rp, Wp)
+    return o, d, seeds, None
+
+
+def _restore_layout(color, pad, ray_layout: str, S: int, H: int, W: int):
+    """(rays, 3) radiance on the kernel's layout -> (S, H, W, 3)."""
+    R = S * H
+    if pad is not None and pad[0] == "tile":
+        color = untile_layout(color, R, W, pad[1], pad[2])
+    elif pad is not None:
+        Rp, Wp = pad
+        color = color.reshape(Rp, Wp, 3)[:R, :W].reshape(-1, 3)
+    if ray_layout == "hsw":
+        return color.reshape(H, S, W, 3).permute(1, 0, 2, 3)
     return color.reshape(S, H, W, 3)
 
 
@@ -364,21 +575,7 @@ def _render_fused(cfg, o, d, seeds, S, H, W, materials, bvh, inst, inst_static,
     n = S * H * W
     dev = o.device
     f32 = torch.float32
-    R = S * H
-    fused_pad = None
-    if cfg.pallas_tile2d and cfg.pallas_prepad and cfg.pallas_tile != "8x128":
-        # patch re-layout: every consecutive th*tw rays are one th x tw pixel
-        # patch, so a warp of the kernel holds 32 neighbouring pixels
-        th, tw = (int(v) for v in cfg.pallas_tile.split("x"))
-        o = tile_layout(o, R, W, th, tw)
-        d = tile_layout(d, R, W, th, tw)
-        seeds = tile_layout(seeds, R, W, th, tw)
-        fused_pad = ("tile", th, tw)
-    elif cfg.pallas_tile2d and cfg.pallas_prepad:
-        Rp, Wp = (R + 7) // 8 * 8, (W + 127) // 128 * 128
-        if (Rp, Wp) != (R, W):
-            o, d, seeds = (pad_layout(x, R, W, Rp, Wp) for x in (o, d, seeds))
-            fused_pad = (Rp, Wp)
+    o, d, seeds, fused_pad = _fused_layout(cfg, o, d, seeds, S * H, W)
     if path_log is not None:
         path_log.append((o, d, seeds))
     tracer = path_tracer or trace_path_cuda
@@ -449,14 +646,7 @@ def _render_fused(cfg, o, d, seeds, S, H, W, materials, bvh, inst, inst_static,
         for T_b, dir_b in directs:
             color = color + T_b * dir_b
 
-    if fused_pad is not None and fused_pad[0] == "tile":
-        color = untile_layout(color, R, W, fused_pad[1], fused_pad[2])
-    elif fused_pad is not None:
-        Rp, Wp = fused_pad
-        color = color.reshape(Rp, Wp, 3)[:R, :W].reshape(-1, 3)
-    if ray_layout == "hsw":
-        return color.reshape(H, S, W, 3).permute(1, 0, 2, 3)
-    return color.reshape(S, H, W, 3)
+    return _restore_layout(color, fused_pad, ray_layout, S, H, W)
 
 
 def pack_bgra(pixel_color: torch.Tensor) -> torch.Tensor:
@@ -472,6 +662,7 @@ def render_frame(
     eye, front, right, up, frame, cfg: RenderConfig,
     proc_static=None, proc=None, light_tex_set=None, inst_static=None,
     light_em=None, trace_log=None, path_log=None, path_tracer=None,
+    march_tracer=None,
 ) -> torch.Tensor:
     """Full frame: average samples, pack BGRA u8 (H, W, 4)."""
     samples = render_samples(
@@ -479,6 +670,6 @@ def render_frame(
         eye, front, right, up, frame, cfg,
         proc_static=proc_static, proc=proc, light_tex_set=light_tex_set,
         inst_static=inst_static, light_em=light_em, trace_log=trace_log,
-        path_log=path_log, path_tracer=path_tracer,
+        path_log=path_log, path_tracer=path_tracer, march_tracer=march_tracer,
     )
     return pack_bgra(samples.mean(dim=0))

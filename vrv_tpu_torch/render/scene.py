@@ -3,8 +3,8 @@
 Counterpart of ``vrv_tpu/render/scene.py::Scene`` (``__init__``,
 ``set_instances``, ``_sync_proc``, ``_sync_proc_edit``, ``_proc_finalize``,
 ``_rebuild_lights``, ``_edit_touches_lights``, ``get_block``, ``set_block``,
-``camera_to_local``, ``render``, ``render_samples``). The scene is a handful
-of tensors on one device:
+``camera_to_local``, ``render``, ``render_samples``, ``render_converged``).
+The scene is a handful of tensors on one device:
 
   - grid          (X,Y,Z) uint8 block ids (+ a host mirror for host queries)
   - translucent   (n_blocks+1,) bool LUT
@@ -15,9 +15,11 @@ of tensors on one device:
   - proc bundle   ``proc_static`` (hashable worldgen parameters) +
                   ``proc_arrays`` (the edit list), what the march consumes
 
-``set_block`` writes the cell in place. The distance field, the row tables,
-``set_grid``, and the sharded/converged renders belong to parts that are
-not ported yet and raise ``NotImplementedError``.
+``set_block`` writes the cell in place. ``render_converged`` accumulates
+``chunks`` passes of ``render_samples`` on the device (a plain loop: no host
+round trip between passes). The distance field, the row tables,
+``set_grid``, and the sharded renders belong to parts that are not ported
+yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ class Scene:
         self._grid_np = np.array(grid, dtype=np.uint8)
         self.grid = self._dev(self._grid_np)
         self.origin = np.asarray(world_cfg.origin, np.float32)
+        self._origin_t = self._dev(self.origin)
         self.translucent = self._dev(self.table.translucent)
         packed_np = np.concatenate(
             [self.table.reflectivity, self.table.emissivity, self.table.metallicity],
@@ -531,6 +534,11 @@ class Scene:
     # ------------------------------------------------------------------
 
     def camera_to_local(self, eye) -> torch.Tensor:
+        """World-space eye -> grid-local, on the scene's device. A tensor
+        already on the device stays there (no host round trip); the float32
+        subtraction is the same either way."""
+        if isinstance(eye, torch.Tensor):
+            return eye.to(device=self.device, dtype=torch.float32) - self._origin_t
         return self._dev(np.asarray(eye, np.float32) - self.origin)
 
     def _proc_for(self, cfg: RenderConfig):
@@ -554,11 +562,12 @@ class Scene:
         )
 
     def render(self, eye, front, right, up, frame: int, cfg: RenderConfig,
-               trace_log=None, path_log=None, path_tracer=None) -> torch.Tensor:
+               trace_log=None, path_log=None, path_tracer=None,
+               march_tracer=None) -> torch.Tensor:
         """One frame -> (H, W, 4) u8 BGRA on the scene's device. The fused
         path gets the scene's instance tables (``inst_static``) and light
         emissive palettes (``light_em``); see ``megakernel.render_samples``
-        for the logs and ``path_tracer``."""
+        for the logs, ``path_tracer`` and ``march_tracer``."""
         ps, pa = self._proc_for(cfg)
         with torch.no_grad():
             return megakernel.render_frame(
@@ -566,6 +575,7 @@ class Scene:
                 proc_static=ps, proc=pa, light_tex_set=self.light_tex_set,
                 inst_static=self.inst_static, light_em=self.light_em,
                 trace_log=trace_log, path_log=path_log, path_tracer=path_tracer,
+                march_tracer=march_tracer,
             )
 
     def render_samples(self, eye, front, right, up, frame: int, cfg: RenderConfig,
@@ -583,9 +593,31 @@ class Scene:
     def render_sharded(self, *a, **k):
         raise NotImplementedError("sharded rendering is not ported (ROADMAP: parallel)")
 
-    def render_converged(self, *a, **k):
-        raise NotImplementedError(
-            "converged rendering is not ported (ROADMAP: converged/progressive)")
+    def render_converged(self, eye, front, right, up, frame: int, chunks: int,
+                         cfg: RenderConfig) -> torch.Tensor:
+        """One converged frame of ``chunks`` accumulated sample passes ->
+        (H, W, 4) u8 BGRA. Pass ids are ``frame*chunks + i`` (mod 2^32, as
+        the JAX package's uint32 ids); radiance is summed over each pass's
+        samples and accumulated from zero in pass order, then packed once —
+        the same expressions as the host loop ``PathTracer.render_converged``,
+        which this equals bit for bit. The arguments are resolved once, before
+        the loop; the loop itself reads nothing back to the host (pass
+        device tensors for the camera to keep the whole call free of host
+        round trips)."""
+        ps, pa = self._proc_for(cfg)
+        args = self._render_args(eye, front, right, up, 0)[:-1]
+        frame0 = int(frame) * int(chunks)
+        with torch.no_grad():
+            acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                              device=self.device)
+            for i in range(int(chunks)):
+                smp = megakernel.render_samples(
+                    *args, (frame0 + i) & 0xFFFFFFFF, cfg,
+                    proc_static=ps, proc=pa, light_tex_set=self.light_tex_set,
+                    inst_static=self.inst_static, light_em=self.light_em,
+                )
+                acc = acc + smp.sum(dim=0)
+            return megakernel.pack_bgra(acc / (chunks * cfg.samples_per_pixel))
 
     def render_converged_sharded(self, *a, **k):
         raise NotImplementedError("sharded rendering is not ported (ROADMAP: parallel)")
